@@ -1,4 +1,4 @@
-# Build/test driver — the TPU framework's counterpart of the reference's
+# Build/test entry points — this framework's counterpart of the reference's
 # OS-detecting Makefile (/root/reference/Makefile:1-53, targets
 # all/lowcut/test/clean). The compute path is JAX/XLA (nothing to compile);
 # `native` builds the C++ PCM codec fast path; `test` is a real suite, not
@@ -10,10 +10,10 @@ PY ?= python
 
 all: native
 
-# C++ PCM codec shared library (ctypes; see audio_fir_filter_tpu/native/).
+# C++ PCM codec shared library (ctypes; see lowcut/native/).
 native:
-	rm -f audio_fir_filter_tpu/native/_pcm_codec.so
-	$(PY) -c "from audio_fir_filter_tpu.native import pcm_codec as p; \
+	rm -f lowcut/native/_pcm_codec.so
+	$(PY) -c "from lowcut.native import pcm_codec as p; \
 	          assert p.load() is not None, 'native codec build failed'; \
 	          print('built', p._SO)"
 
@@ -25,5 +25,5 @@ bench:
 	$(PY) bench.py
 
 clean:
-	rm -f audio_fir_filter_tpu/native/_pcm_codec.so
+	rm -f lowcut/native/_pcm_codec.so
 	find . -name '__pycache__' -type d -prune -exec rm -rf {} +

@@ -10,7 +10,7 @@ import struct
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.audio import (
+from lowcut.audio import (
     AudioFormat,
     Chunk,
     Encoding,
@@ -20,11 +20,11 @@ from audio_fir_filter_tpu.audio import (
     serialize_container,
     write_audio,
 )
-from audio_fir_filter_tpu.audio import codec
-from audio_fir_filter_tpu.audio.chunks import AIFF, WAVE
-from audio_fir_filter_tpu.audio.format import _decode_ext80, _encode_ext80
-from audio_fir_filter_tpu.audio.synth import build_container, create_audio_file, make_format
-from audio_fir_filter_tpu.utils.errors import AudioFormatError, FileNotFound
+from lowcut.audio import codec
+from lowcut.audio.chunks import AIFF, WAVE
+from lowcut.audio.format import _decode_ext80, _encode_ext80
+from lowcut.audio.synth import build_container, create_audio_file, make_format
+from lowcut.utils.errors import AudioFormatError, FileNotFound
 
 
 def rng():
@@ -210,7 +210,7 @@ def test_write_rejects_over_4gb_chunk():
     are u32 (audio/chunks.py write_container guard)."""
     import io
 
-    from audio_fir_filter_tpu.audio.chunks import Chunk, Container, StreamedChunk
+    from lowcut.audio.chunks import Chunk, Container, StreamedChunk
 
     class _Giant(StreamedChunk):
         def __init__(self):
@@ -221,7 +221,7 @@ def test_write_rejects_over_4gb_chunk():
     c = Container(kind=WAVE, form_type=b"WAVE",
                   chunks=[Chunk(b"fmt ", b"\x00" * 16), _Giant()])
     buf = io.BytesIO()
-    from audio_fir_filter_tpu.audio.chunks import write_container
+    from lowcut.audio.chunks import write_container
     with pytest.raises(AudioFormatError, match="4 GB"):
         write_container(buf, c)
     assert buf.getvalue() == b""  # nothing written, not even the header
@@ -232,7 +232,7 @@ def test_write_rejects_over_4gb_total():
     each individually legal)."""
     import io
 
-    from audio_fir_filter_tpu.audio.chunks import Container, StreamedChunk, write_container
+    from lowcut.audio.chunks import Container, StreamedChunk, write_container
 
     big = StreamedChunk(b"data", 0xFFFFFFF0, lambda f: None)
     tip = StreamedChunk(b"more", 64, lambda f: None)

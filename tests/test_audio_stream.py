@@ -11,10 +11,10 @@ single file spans many slabs (the overlap/boundary logic)."""
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.audio import file as afile
-from audio_fir_filter_tpu.audio.chunks import Chunk
-from audio_fir_filter_tpu.audio.format import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
+from lowcut.audio import file as afile
+from lowcut.audio.chunks import Chunk
+from lowcut.audio.format import Encoding
+from lowcut.audio.synth import create_audio_file
 
 EXTRA = [Chunk(b"LIST", b"INFOsomething"), Chunk(b"odd ", b"xyz")]  # odd size
 

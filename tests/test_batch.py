@@ -11,13 +11,13 @@ with the single-file path.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
-from audio_fir_filter_tpu.pipeline import process_file
-from audio_fir_filter_tpu.pipeline.batch import run_batch
-from audio_fir_filter_tpu.utils.errors import FileExists, FileNotFound
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from lowcut import audio
+from lowcut.audio import Encoding
+from lowcut.audio.synth import create_audio_file
+from lowcut.pipeline import process_file
+from lowcut.pipeline.batch import run_batch
+from lowcut.utils.errors import FileExists, FileNotFound
+from lowcut.utils.options import FilterOptions
 
 FS = 8000.0
 
@@ -105,7 +105,7 @@ def test_duplicate_filenames_last_wins_with_overwrite(tmp_path):
 
 
 def test_manifest_skip_and_mark(tmp_path):
-    from audio_fir_filter_tpu.pipeline.manifest import (
+    from lowcut.pipeline.manifest import (
         BatchManifest, options_fingerprint)
 
     ins = [wav(tmp_path / f"r{i}.wav", seed=i) for i in range(3)]
@@ -139,7 +139,7 @@ def test_shared_plan_cache_across_batch(tmp_path):
 def test_manifest_engine_flip_not_skipped(tmp_path):
     """Engines round float32 differently; a resume that flips --engine must
     reprocess, not skip (manifest fingerprint includes engine)."""
-    from audio_fir_filter_tpu.pipeline.manifest import (
+    from lowcut.pipeline.manifest import (
         BatchManifest, options_fingerprint)
 
     ins = [wav(tmp_path / "e0.wav", seed=3)]

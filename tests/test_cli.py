@@ -7,14 +7,15 @@ mismatch, dir-with-extension error, batch mode, help text. Run in-process
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.synth import create_audio_file
-from audio_fir_filter_tpu.cli import main
+from lowcut import audio
+from lowcut.audio import Encoding
+from lowcut.audio.synth import create_audio_file
+from lowcut.cli import main
 
 FS = 8000.0
 FAST = ["--precision", "fast", "--block-size", "1024", "-f", "100", "-s", "200"]
@@ -141,11 +142,11 @@ def test_not_verbose_no_status(tmp_path, capsys):
 
 
 def test_subprocess_entry_point(tmp_path):
-    """Real process: python -m audio_fir_filter_tpu --help (no TPU needed)."""
+    """Real process: python -m lowcut --help (no device needed)."""
     r = subprocess.run(
-        [sys.executable, "-m", "audio_fir_filter_tpu", "--help"],
+        [sys.executable, "-m", "lowcut", "--help"],
         capture_output=True, text=True, timeout=120,
-        cwd="/root/repo",
+        cwd=Path(__file__).resolve().parents[1],
     )
     assert r.returncode == 0
     assert "lowcut" in r.stdout
@@ -165,6 +166,27 @@ def test_mesh_flag_cpu_8dev(tmp_path):
     a = audio.read_audio(out).samples
     b = audio.read_audio(ref_out).samples
     np.testing.assert_allclose(a, b, atol=4 / 32768)
+
+
+def test_engine_pallas_rejected(tmp_path, capsys):
+    """The removed "pallas" kernel engine: asking for it is a usage
+    error, not a silent substitute."""
+    p = wav(tmp_path, "e.wav")
+    out = tmp_path / "eo.wav"
+    assert main([str(p), str(out), "--engine", "pallas", *FAST]) == 1
+    assert "pallas" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("engine", ["fft", "fourstep"])
+def test_engine_flag_matches_default(tmp_path, engine):
+    p = wav(tmp_path, "e.wav")
+    out, ref_out = tmp_path / "eo.wav", tmp_path / "ref.wav"
+    assert main([str(p), str(out), "--engine", engine, *FAST]) == 0
+    assert main([str(p), str(ref_out), *FAST]) == 0
+    np.testing.assert_allclose(audio.read_audio(out).samples,
+                               audio.read_audio(ref_out).samples,
+                               atol=1 / 32768)
 
 
 def test_mesh_flag_bad_spec(tmp_path, capsys):
@@ -201,7 +223,7 @@ def test_batch_resume_reprocesses_on_changed_options(tmp_path):
 
 
 def test_filter_family_bandpass(tmp_path):
-    from audio_fir_filter_tpu.ops import kernel_design as kd, oracle
+    from lowcut.ops import kernel_design as kd, oracle
 
     p = wav(tmp_path, "band.wav")
     out = tmp_path / "band_out.wav"

@@ -6,7 +6,7 @@ DC gain, symmetry, Smith length rule, spectral inversion, band filters.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.ops import kernel_design as kd
+from lowcut.ops import kernel_design as kd
 
 
 def test_kernel_length_defaults_match_reference_reconstruction():

@@ -9,9 +9,9 @@ overlap-save plan -> output matches the float64 oracle.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.models import BandPass, BandReject, HighPass, LowCut, LowPass
-from audio_fir_filter_tpu.ops import oracle
-from audio_fir_filter_tpu.ops import overlap_save as osv
+from lowcut.models import BandPass, BandReject, HighPass, LowCut, LowPass
+from lowcut.ops import oracle
+from lowcut.ops import overlap_save as osv
 
 FS = 8000.0
 

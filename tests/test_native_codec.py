@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.native import pcm_codec
+from lowcut.native import pcm_codec
 
 
 @pytest.fixture(scope="module")
@@ -17,7 +17,7 @@ def native():
 @pytest.mark.parametrize("bits", [16, 24])
 @pytest.mark.parametrize("be", [False, True])
 def test_decode_matches_numpy(native, bits, be):
-    from audio_fir_filter_tpu.audio import codec as pycodec
+    from lowcut.audio import codec as pycodec
 
     rng = np.random.default_rng(0)
     raw = rng.integers(0, 256, size=3 * 4 * 1000, dtype=np.uint8)
@@ -33,7 +33,7 @@ def test_decode_matches_numpy(native, bits, be):
 @pytest.mark.parametrize("bits", [16, 24])
 @pytest.mark.parametrize("be", [False, True])
 def test_encode_matches_numpy(native, bits, be):
-    from audio_fir_filter_tpu.audio import codec as pycodec
+    from lowcut.audio import codec as pycodec
 
     rng = np.random.default_rng(1)
     x = rng.uniform(-1.2, 1.2, 5000).astype(np.float32)  # include clipping range
@@ -55,7 +55,7 @@ def test_peak(native):
 
 
 def _numpy_decode_planar(raw, channels, bits, be):
-    from audio_fir_filter_tpu.audio import codec as pycodec
+    from lowcut.audio import codec as pycodec
 
     if bits == 16:
         flat = raw.view(">i2" if be else "<i2").astype(np.float32) / np.float32(32768)
@@ -80,7 +80,7 @@ def test_decode_planar_matches_numpy(native, bits, be, channels):
 @pytest.mark.parametrize("be", [False, True])
 @pytest.mark.parametrize("channels", [1, 2, 3])
 def test_encode_planar_matches_numpy(native, bits, be, channels):
-    from audio_fir_filter_tpu.audio import codec as pycodec
+    from lowcut.audio import codec as pycodec
 
     rng = np.random.default_rng(3)
     x = rng.uniform(-1.2, 1.2, (channels, 1009)).astype(np.float32)
@@ -115,8 +115,8 @@ def test_planar_threaded_matches_single(native):
 def test_codec_roundtrip_through_public_api():
     """decode/encode through audio.codec must round-trip quantized data
     bit-exactly whichever path (native or NumPy) is active."""
-    from audio_fir_filter_tpu.audio import codec as pycodec
-    from audio_fir_filter_tpu.audio.format import AudioFormat, Encoding
+    from lowcut.audio import codec as pycodec
+    from lowcut.audio.format import AudioFormat, Encoding
 
     rng = np.random.default_rng(5)
     fmt = AudioFormat(channels=2, sample_rate=48000.0, encoding=Encoding.PCM_24)

@@ -6,9 +6,10 @@ and that the f64 FFT fast-oracle matches the direct sum.
 """
 
 import numpy as np
+import pytest
 
-from audio_fir_filter_tpu.ops import kernel_design as kd
-from audio_fir_filter_tpu.ops import oracle
+from lowcut.ops import kernel_design as kd
+from lowcut.ops import oracle
 
 
 def make_case(n=500, fc=0.06, bw=0.05, seed=3):
@@ -76,3 +77,15 @@ def test_zero_padding_at_edges():
     y = oracle.direct_filter(x, ws.taps)
     expected0 = np.dot(ws.taps[ws.mo2 :], x[: ws.mo2 + 1].astype(np.float64))
     assert np.isclose(y[0], np.float32(expected0), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("start,stop", [(0, 700), (1500, 2600), (4300, 5000)])
+def test_window_oracle_equals_direct_slice(start, stop):
+    """The windowed float64 oracle (used on signals too long to filter
+    whole) equals the direct oracle's slice, edges included."""
+    ws = kd.WindowedSinc(0.05, 0.02).make_low_cut()       # 201 taps
+    x = np.random.default_rng(3).uniform(-1, 1, 5000).astype(np.float32)
+    want = oracle.direct_filter(x, ws.taps)[start:stop]
+    got = oracle.window_filter_f64(x, ws.taps, start, stop)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert oracle.max_lsb_error(got, want, bits=24) <= 0.5

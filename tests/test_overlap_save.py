@@ -1,8 +1,10 @@
 """Overlap-save engine vs the float64 oracle (SURVEY.md §4.1-4.2).
 
 Gate (SURVEY.md §7 step 4): high-precision path matches the oracle within
-1 LSB @ 24-bit on TPU (relaxed on the CPU test backend — see fft_core.py's
-accuracy notes); fast path within 1 LSB @ 16-bit. Edge zero-padding must be
+1 LSB @ 24-bit (the double-float engines are relaxed on the CPU test
+backend — see fft_core.py's accuracy notes); fast path within 1 LSB @
+16-bit. There is no matrix product on the device path, so TF32 never
+applies to these gates. Edge zero-padding must be
 identical to the reference's 3-phase semantics (tested via the oracle, which
 is itself proven equal to the loop transliteration in test_oracle.py).
 
@@ -13,10 +15,11 @@ FFT graphs quick to compile; correctness properties are size-independent.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu.ops import kernel_design as kd
-from audio_fir_filter_tpu.ops import oracle
-from audio_fir_filter_tpu.ops import overlap_save as osv
+from lowcut.ops import kernel_design as kd
+from lowcut.ops import oracle
+from lowcut.ops import overlap_save as osv
 
+from lowcut.utils.options import ENGINES
 from util import high_tol_lsb24
 
 
@@ -29,8 +32,7 @@ def make_case(n, fc=0.05, bw=0.02, seed=0, channels=None):
 
 
 def test_choose_block_size():
-    # Production kernels get the 2^18 floor (v5e A/Bs in the docstring);
-    # next_pow2(4M) wins above it.
+    # Production kernels get the 2^18 floor; next_pow2(4M) above it.
     assert osv.choose_block_size(17641) == 1 << 18   # 44.1 kHz M=17640
     assert osv.choose_block_size(38401) == 1 << 18   # 96 kHz M=38400
     assert osv.choose_block_size(76801) == 1 << 19   # 192 kHz M=76800
@@ -77,53 +79,6 @@ def test_scaled_lsb_metric_never_weaker_below_full_scale():
     b = np.float64([0.25])
     assert oracle.max_scaled_lsb_error(a, b, bits=24) == pytest.approx(
         oracle.max_lsb_error(a, b, bits=24))
-
-
-def test_pallas_segment_16bit_native_io():
-    """The 16-bit-native I/O mode (pallas_segment_filter(i16_io=True)):
-    int16 PCM in, int16 PCM out with the codec's quantization rule —
-    the DMA-bound-fast-path mode from round 5 (+30% measured on
-    hardware, experiments/fast16_r05.txt). Gates: <= 1 LSB @ 16-bit vs
-    the float64 oracle on the dequantized input, and saturation on a
-    clipping signal (the caller's redo-in-f32 trigger)."""
-    import jax.numpy as jnp
-
-    from audio_fir_filter_tpu.ops import fft_core as fc
-    from audio_fir_filter_tpu.ops import kernel_design as kd
-    from audio_fir_filter_tpu.ops import oracle
-    from audio_fir_filter_tpu.ops import pallas_fft as pf
-
-    taps = kd.highpass_taps(0.05, 128)
-    b = 1024
-    assert pf.segment16_qualifies(len(taps), b, True)
-    h = np.zeros(b)
-    h[:len(taps)] = taps[::-1]
-    H2 = pf.wrap_spectrum(pf.kernel_spectrum_np(h, b, fc.ARITH_F32),
-                          fc.ARITH_F32)
-    rng = np.random.default_rng(29)
-    _, _, hp = pf._segment_framing(len(taps) - 1, b, 16)
-    n = 2 * hp + 123
-    x = rng.uniform(-0.6, 0.6, (2, n)).astype(np.float32)
-    xq = np.clip(np.rint(x * 32768), -32768, 32767).astype(np.int16)
-    y16 = np.asarray(pf.pallas_segment_filter(
-        jnp.asarray(xq), len(taps), b, H2, arith=fc.ARITH_F32,
-        interpret=True, i16_io=True))
-    assert y16.dtype == np.int16 and y16.shape == xq.shape
-    want = np.stack([oracle.direct_filter(
-        xq[i].astype(np.float64) / 32768, taps) for i in range(2)])
-    err = np.abs(y16.astype(np.float64) / 32768 - want).max() * 32768
-    assert err <= 1.0, err
-
-    # Saturating signal: output must CLAMP (not wrap) and hit the rails,
-    # which is the caller's signal to redo in the f32 path.
-    xg = np.clip(np.rint(3.0 * x * 32768), -32768, 32767).astype(np.int16)
-    yg = np.asarray(pf.pallas_segment_filter(
-        jnp.asarray(xg), len(taps), b, H2, arith=fc.ARITH_F32,
-        interpret=True, i16_io=True))
-    wg = np.stack([oracle.direct_filter(
-        xg[i].astype(np.float64) / 32768, taps) for i in range(2)])
-    assert np.abs(wg).max() > 1.0          # the oracle really clips
-    assert yg.max() == 32767 or yg.min() == -32768
 
 
 @pytest.mark.parametrize("n", [100, 823, 824, 825, 5000])
@@ -200,83 +155,72 @@ def test_sine_passband_and_stopband():
     assert np.max(np.abs(y_hig - hig[ws.num_taps : -ws.num_taps])) < 1e-2
 
 
-@pytest.mark.parametrize("engine", ["fourstep", "pallas", "pease", "stockham"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_engines_match_oracle(engine):
-    """Both FFT engines implement identical semantics."""
+    """Every FFT engine implements identical semantics."""
     x, ws = make_case(n=6000, seed=9)
     plan = osv.make_plan(ws.taps, precision=osv.HIGH, block_size=1024, engine=engine)
     y = np.asarray(osv.same_filter(x, plan))
     ref = oracle.direct_filter(x, ws.taps)
-    assert oracle.max_lsb_error(y, ref, bits=24) <= high_tol_lsb24()
+    assert oracle.max_lsb_error(y, ref, bits=24) <= high_tol_lsb24(engine)
 
 
-def test_pallas_segment_path_matches_oracle_and_falls_back():
-    """The whole-segment fused kernel (ops/pallas_fft.pallas_segment_filter,
-    interpret mode on CPU): multi-block signals with ragged tails vs the
-    float64 oracle, and graceful None-fallback when hop/m do not divide the
-    lane width."""
+@pytest.mark.parametrize("precision,bits", [(osv.FAST, 16), (osv.HIGH, 24)])
+def test_fft_engine_gate_multichannel_ragged(precision, bits):
+    """The jnp.fft engine against the oracle over several blocks with a
+    ragged tail, 2 channels. "high" is native float64, so its 1.0 LSB @
+    24-bit gate holds on the CPU backend too."""
+    x, ws = make_case(n=5 * 824 + 311, seed=21, channels=2)
+    plan = osv.make_plan(ws.taps, precision=precision, block_size=1024,
+                         engine="fft")
+    y = np.asarray(osv.same_filter(x, plan))
+    for c in range(2):
+        ref = oracle.direct_filter(x[c], ws.taps)
+        assert oracle.max_scaled_lsb_error(y[c], ref, bits=bits) <= 1.0
+
+
+@pytest.mark.parametrize("precision,cdt", [(osv.FAST, np.complex64),
+                                           (osv.HIGH, np.complex128)])
+def test_fft_engine_x64_stays_scoped(precision, cdt):
+    """High precision enables float64 only around the engine's own calls:
+    H is complex128 (complex64 for fast), outputs are float32, and the
+    process default dtype is float32 again after the call."""
+    import jax
     import jax.numpy as jnp
 
-    from audio_fir_filter_tpu.ops import fft_core as fc
-    from audio_fir_filter_tpu.ops import kernel_design as kd
-    from audio_fir_filter_tpu.ops import oracle
-    from audio_fir_filter_tpu.ops import overlap_save as osv
-    from audio_fir_filter_tpu.ops import pallas_fft as pf
-    from util import high_tol_lsb24
-
-    rng = np.random.default_rng(17)
-    taps = kd.highpass_taps(0.05, 128)           # 129 taps, m = 128
-    for precision in ("high", "fast"):
-        plan = osv.make_plan(taps, precision=precision, block_size=1024,
-                             engine="pallas")
-        b, hop, m = plan.block_size, plan.hop, plan.m
-        r, c = fc.fourstep_split(b)
-        assert hop % c == 0 and m % c == 0      # fused path qualifies
-        # multi-block, sub-block, and 3-channel (odd grid total: the
-        # double-buffered prefetch crosses channel boundaries)
-        for chn, n in ((2, 3 * hop + 37), (2, hop - 5), (3, hop + 37)):
-            x = rng.uniform(-1, 1, (chn, n)).astype(np.float32)
-            y = np.asarray(osv.same_filter(jnp.asarray(x), plan))
-            want = np.stack([oracle.direct_filter(xi, taps) for xi in x])
-            tol = high_tol_lsb24() if precision == "high" else 600.0
-            assert oracle.max_lsb_error(y, want) <= tol, (precision, n)
-
-    # Since round 4 a kernel order NOT divisible by the lane width also
-    # takes the fused path (ceil-row alias skip + delta-shifted framing —
-    # the 44.1 kHz M=17,640 case): m = 130, c = 32 -> mr = 5, delta = 30.
-    taps131 = kd.highpass_taps(0.05, 130)        # 131 taps, m = 130
-    plan131 = osv.make_plan(taps131, precision="high", block_size=1024,
-                            engine="pallas")
-    assert plan131.m % fc.fourstep_split(plan131.block_size)[1] != 0
-    for chn, n in ((2, 2 * plan131.hop + 37), (1, 301)):
-        x = rng.uniform(-1, 1, (chn, n)).astype(np.float32)
-        y = np.asarray(osv.same_filter(jnp.asarray(x), plan131))
-        want = np.stack([oracle.direct_filter(xi, taps131) for xi in x])
-        assert oracle.max_lsb_error(y, want) <= high_tol_lsb24(), n
-
-    # A kernel too long for the block (hop would be <= 0) must decline
-    # (the block-matrix path takes over): M' = ceil(999/32)*32 = 1024 = B.
-    got = pf.pallas_segment_filter(jnp.zeros((1, 4000), jnp.float32),
-                                   num_taps=1000, b=1024, H2=None,
-                                   arith=fc.ARITH_DF64)
-    assert got is None
+    x, ws = make_case(n=3000, seed=22)
+    plan = osv.make_plan(ws.taps, precision=precision, block_size=1024,
+                         engine="fft")
+    assert plan.H.dtype == cdt
+    assert plan.H.shape == (1024 // 2 + 1,)
+    y, peak = osv.same_filter_peak(x, plan)
+    assert y.dtype == jnp.float32 and peak.dtype == jnp.float32
+    assert not jax.config.jax_enable_x64
+    assert jnp.zeros(3).dtype == jnp.float32
+    assert jnp.asarray(1.0).dtype == jnp.float32
 
 
-def test_pallas_segment_path_declines_even_tap_count():
-    """Even tap counts (odd M) have no integer Mo2 with 2*Mo2 == M; the
-    fused segment framing would return output advanced by one sample
-    (round-4 review finding). The exported function must decline cleanly
-    — make_plan already rejects such kernels, but direct callers must
-    never get silently time-shifted audio."""
-    import jax.numpy as jnp
+def test_fft_high_refuses_to_run_outside_x64_scope():
+    """Without the scope a float64 cast silently yields float32; the
+    engine raises instead of quietly running at float32."""
+    x, ws = make_case(n=2000, seed=23)
+    plan = osv.make_plan(ws.taps, precision=osv.HIGH, block_size=1024,
+                         engine="fft")
+    with pytest.raises(RuntimeError, match="x64_scope"):
+        osv._same_filter_jit(np.asarray(x)[None], plan.static, plan.H)
 
-    from audio_fir_filter_tpu.ops import fft_core as fc
-    from audio_fir_filter_tpu.ops import pallas_fft as pf
 
-    assert not pf.segment_path_qualifies(40, 256, interpret=True)
-    got = pf.pallas_segment_filter(jnp.zeros((1, 500), jnp.float32),
-                                   num_taps=40, b=256, H2=None,
-                                   arith=fc.ARITH_F32, interpret=True)
-    assert got is None
-    # Odd tap counts at the same shape do qualify.
-    assert pf.segment_path_qualifies(41, 256, interpret=True)
+@pytest.mark.parametrize("engine", ["pallas", "bogus"])
+def test_make_plan_rejects_unknown_engines(engine):
+    """The removed "pallas" kernel engine, or any unknown one, fails
+    clearly rather than running anything in its place."""
+    _, ws = make_case(n=10)
+    with pytest.raises(ValueError, match="unknown engine"):
+        osv.make_plan(ws.taps, precision=osv.HIGH, block_size=1024,
+                      engine=engine)
+
+
+def test_auto_engine_resolves_to_default():
+    _, ws = make_case(n=10)
+    plan = osv.make_plan(ws.taps, precision=osv.FAST, block_size=1024)
+    assert plan.engine == osv.default_engine() in ENGINES

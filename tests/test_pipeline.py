@@ -8,15 +8,15 @@ auto-normalize-on-clip semantics.
 import numpy as np
 import pytest
 
-from audio_fir_filter_tpu import audio
-from audio_fir_filter_tpu.audio import Encoding
-from audio_fir_filter_tpu.audio.chunks import Chunk
-from audio_fir_filter_tpu.audio.synth import create_audio_file
-from audio_fir_filter_tpu.ops import kernel_design as kd
-from audio_fir_filter_tpu.ops import oracle
-from audio_fir_filter_tpu.pipeline import filter_array_streamed, process_file
-from audio_fir_filter_tpu.ops import overlap_save as osv
-from audio_fir_filter_tpu.utils.options import FilterOptions
+from lowcut import audio
+from lowcut.audio import Encoding
+from lowcut.audio.chunks import Chunk
+from lowcut.audio.synth import create_audio_file
+from lowcut.ops import kernel_design as kd
+from lowcut.ops import oracle
+from lowcut.pipeline import filter_array_streamed, process_file
+from lowcut.ops import overlap_save as osv
+from lowcut.utils.options import FilterOptions
 
 from util import high_tol_lsb24
 
@@ -136,7 +136,7 @@ def test_explicit_normalize(tmp_path):
 def test_resolve_precision_policy():
     """"auto" resolves by OUTPUT encoding: f32 engine only where its error
     is below 1 LSB at that depth (<= 16-bit PCM); explicit values win."""
-    from audio_fir_filter_tpu.utils.options import resolve_precision
+    from lowcut.utils.options import resolve_precision
 
     assert resolve_precision("auto", Encoding.PCM_16) == "fast"
     assert resolve_precision("auto", Encoding.PCM_U8) == "fast"
@@ -205,82 +205,36 @@ def test_streamed_host_residency_no_full_padded_copy():
     assert peak_bytes < 1.6 * payload, (peak_bytes, payload)
 
 
-def test_process_file_16bit_native_route(tmp_path):
-    """16-bit PCM in, fast precision, pallas engine: the 16-bit-native
-    device route engages (round 5) and its file matches the f32 route's
-    within 1 LSB @ 16-bit; the normalize and clip cases fall back."""
-    from audio_fir_filter_tpu.pipeline.process_file import _use_i16_route
-    from audio_fir_filter_tpu.ops import overlap_save as osv_mod
-
-    opts16 = FilterOptions(freq=100.0, slope=200.0, precision="fast",
-                           block_size=1024, engine="pallas")
-    p, x = make_input(tmp_path, encoding=Encoding.PCM_16, frames=6000)
-    data = audio.read_audio(p)
-    model_plan = osv_mod.make_plan(
-        kd.highpass_taps(100.0 / FS, kd.kernel_length(200.0 / FS)),
-        precision="fast", block_size=1024, engine="pallas")
-    # On a real TPU this tiny test block (c=32 < Mosaic's 128-lane floor)
-    # correctly DECLINES the fused path and the route falls back to f32;
-    # on the CPU interpreter it engages. Either way the gate must agree
-    # with the engine qualifier.
-    from audio_fir_filter_tpu.ops import pallas_fft as pf
-    expect = pf.segment16_qualifies(model_plan.num_taps,
-                                    model_plan.block_size)
-    assert _use_i16_route(opts16, "fast", model_plan, data) == expect
-
-    out16 = tmp_path / "out16.wav"
-    m = process_file(p, out16, opts16, show_progress=False)
-    assert m["precision"] == "fast"
-    outf = tmp_path / "outf.wav"
-    process_file(p, outf, FilterOptions(freq=100.0, slope=200.0,
-                                        precision="fast", block_size=1024,
-                                        engine="fourstep"),
-                 show_progress=False)
-    y16 = audio.read_audio(out16).samples
-    yf = audio.read_audio(outf).samples
-    assert oracle.max_lsb_error(y16, yf, bits=16) <= 1.0
-
-    # -n forces the f32 route (needs float output for the common scale).
-    optsn = FilterOptions(freq=100.0, slope=200.0, precision="fast",
-                          block_size=1024, engine="pallas", normalize=True)
-    assert not _use_i16_route(optsn, "fast", model_plan, data)
-
-    # A clipping signal falls back and auto-normalizes like the reference.
-    pc, _ = make_input(tmp_path, name="clip.wav", encoding=Encoding.PCM_16,
-                       frames=6000, scale=0.999)
-    outc = tmp_path / "outc.wav"
-    mc = process_file(pc, outc, opts16, show_progress=False)
-    yc = audio.read_audio(outc).samples
-    if mc["peak"] > 1.0:   # the filtered signal actually clipped
-        assert np.max(np.abs(yc)) <= 1.0 + 2 ** -15
-
-
-def test_streamed_i16_multisegment_equals_single_call():
-    """The 16-bit-native stream path's segment chaining (Mo2 halos,
-    per-segment body peaks) must reproduce the single-call result to
-    within 1 LSB: segment framing shifts the signal inside the kernel's
-    left-pad, so f32 rounding can differ by +-1 ulp at knife-edge
-    samples, which int16 quantization surfaces as a 1-count flip (same
-    class of tolerance as the f32 stream test above). Peaks and
-    saturation must agree to the same 1 count; vs the oracle both stay
-    inside the 1-LSB gate."""
-    from audio_fir_filter_tpu.pipeline.stream import filter_array_streamed_i16
-
+@pytest.mark.parametrize("precision,bits", [("fast", 16), ("high", 24)])
+def test_streamed_multisegment_equals_single_call(precision, bits):
+    """Segment chaining (Mo2 halos, per-segment device peaks) with the
+    jnp.fft engine reproduces the single call: different segment shapes
+    may round differently in the last float32 bit, so the bound is one
+    gate each way, and both stay inside the gate against the oracle."""
     ws = kd.WindowedSinc(0.02, 0.025).make_low_cut()
-    plan = osv.make_plan(ws.taps, precision="fast", block_size=1024,
-                         engine="pallas")
+    plan = osv.make_plan(ws.taps, precision=precision, block_size=1024,
+                         engine="fft")
     rng = np.random.default_rng(31)
     x = rng.uniform(-0.7, 0.7, (2, 20_000)).astype(np.float32)
-    x16 = np.asarray(x * np.float32(32768.0), np.int16)
-    whole, pw, satw = filter_array_streamed_i16(x16, plan)
-    seg, ps, sats = filter_array_streamed_i16(x16, plan,
-                                              segment_len=plan.hop * 3)
-    d = np.abs(whole.astype(np.int32) - seg.astype(np.int32))
-    assert d.max() <= 1
-    assert abs(pw - ps) <= 1 and satw == sats
-    assert pw == int(np.max(np.abs(whole.astype(np.int32))))
-    want = np.stack([oracle.direct_filter(
-        x16[i].astype(np.float64) / 32768, ws.taps) for i in range(2)])
-    for y in (whole, seg):
-        err = np.abs(y.astype(np.float64) / 32768 - want).max() * 32768
-        assert err <= 1.0, err
+    whole, pw = filter_array_streamed(x, plan)
+    seg, ps = filter_array_streamed(x, plan, segment_len=plan.hop * 3)
+    assert seg.dtype == np.float32 and seg.shape == x.shape
+    assert oracle.max_lsb_error(seg, whole, bits=bits) <= 1.0
+    assert np.isclose(pw, ps, rtol=1e-6)
+    for c in range(2):
+        ref = oracle.direct_filter(x[c], ws.taps)
+        for y in (whole, seg):
+            assert oracle.max_lsb_error(y[c], ref, bits=bits) <= 1.0
+
+
+def test_process_file_metrics_name_the_device(tmp_path):
+    """The metrics carry the platform and kind of the device that
+    filtered, so a run that left the accelerator is visible."""
+    import jax
+
+    p, _ = make_input(tmp_path, frames=3000)
+    m = process_file(p, tmp_path / "out.wav", FilterOptions(**OPTS),
+                     show_progress=False)
+    d = jax.devices()[0]
+    assert m["device"] == {"platform": d.platform, "kind": d.device_kind,
+                           "count": 1}

@@ -9,7 +9,7 @@ import io
 import re
 import threading
 
-from audio_fir_filter_tpu.utils.progress import ProgressBar, ThreadSafeProgress
+from lowcut.utils.progress import ProgressBar, ThreadSafeProgress
 
 
 def test_bar_renders_and_finalizes():

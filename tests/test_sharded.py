@@ -11,16 +11,19 @@ import pytest
 
 import jax
 
-from audio_fir_filter_tpu.ops import kernel_design as kd
-from audio_fir_filter_tpu.ops import oracle
-from audio_fir_filter_tpu.ops import overlap_save as osv
-from audio_fir_filter_tpu.parallel import make_mesh, sharded_filter, sharded_filter_padded
+from lowcut.ops import kernel_design as kd
+from lowcut.ops import oracle
+from lowcut.ops import overlap_save as osv
+from lowcut.parallel import make_mesh, sharded_filter, sharded_filter_padded
 
 from util import high_tol_lsb24
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
-)
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 (virtual) devices")
 
 
 def make_case(n, channels=2, bw=0.02, fc=0.05, seed=0):
@@ -130,7 +133,7 @@ def test_sharded_edge_halos_chain_segments():
 
 
 def test_sharded_streamed_matches_unsharded_and_reports_progress():
-    from audio_fir_filter_tpu.pipeline.stream import sharded_filter_streamed
+    from lowcut.pipeline.stream import sharded_filter_streamed
 
     x, ws, plan = make_case(n=9000, channels=3, seed=11)
     mesh = make_mesh((2, 4))
@@ -150,7 +153,7 @@ def test_sharded_streamed_matches_unsharded_and_reports_progress():
 def test_sharded_streamed_no_per_segment_scaling():
     """A clipping segment must NOT be scaled alone: one global factor only
     (ProcessFile.cp:92-101)."""
-    from audio_fir_filter_tpu.pipeline.stream import sharded_filter_streamed
+    from lowcut.pipeline.stream import sharded_filter_streamed
 
     x, ws, plan = make_case(n=6000, channels=1, seed=2)
     x = (x * 4.0).astype(np.float32)  # drive the filtered peak over 1.0
@@ -161,12 +164,13 @@ def test_sharded_streamed_no_per_segment_scaling():
     assert oracle.max_lsb_error(y, ref, bits=24) <= 4 * high_tol_lsb24()
 
 
-# ------------------------------------------------- production pallas engine
+# ------------------------------------------- default engine, both precisions
 
-def _pallas_case(num_taps):
-    """Random odd-length taps + a 2-channel signal for the pallas engine
-    tests; which KERNEL PATH a (taps, block) pair takes is pinned inside
-    each test via pallas_fft.segment_path_qualifies, not by comment."""
+PRECISIONS = [(osv.HIGH, 24), (osv.FAST, 16)]
+
+
+def _random_taps_case(num_taps):
+    """Random odd-length taps + a 2-channel signal."""
     rng = np.random.default_rng(0)
     taps = rng.standard_normal(num_taps) * 0.05
     taps[num_taps // 2] += 1.0
@@ -174,62 +178,31 @@ def _pallas_case(num_taps):
     return taps, x
 
 
+@pytest.mark.parametrize("precision,bits", PRECISIONS)
 @pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 4)])
-@pytest.mark.parametrize("num_taps,block,segment_path", [
-    # T=193 @ B=1024: fused SEGMENT path (DMA prologue).
-    (193, 1024, True),
-    # T=201 @ B=1024: ALSO segment path since the round-4 ceil-row framing
-    # (M need not divide c any more) — kept as the delta != 0 case.
-    (201, 1024, True),
-    # T=201 @ B=256: hop would be <= 0 -> segment path declines; this is
-    # the case that actually exercises the generic BLOCK path
-    # (pallas_conv_real_blocks) under shard_map.
-    (201, 256, False),
-])
-def test_sharded_pallas_engine_matches_oracle(mesh_shape, num_taps, block,
-                                              segment_path):
-    """The PRODUCTION engine (engine='pallas', interpret mode on CPU) must
-    run under shard_map and match the f64 oracle — the flagship multi-chip
-    combination (VERDICT r3 missing #1). Covers ppermute halos feeding
-    both kernel paths (fused segment incl. delta-framing, generic block)."""
-    from audio_fir_filter_tpu.ops import pallas_fft as pf
-
-    taps, x = _pallas_case(num_taps)
-    # Pin the claimed path (a stale-comment bug here is what round-4's
-    # review caught): the qualifier must agree with the case table.
-    assert pf.segment_path_qualifies(num_taps, block, interpret=True) \
-        == segment_path
-    plan = osv.make_plan(taps, precision=osv.HIGH, block_size=block,
-                         engine="pallas")
+@pytest.mark.parametrize("num_taps,block", [(193, 1024), (201, 1024),
+                                            (201, 256)])
+def test_sharded_default_engine_matches_oracle(mesh_shape, num_taps, block,
+                                               precision, bits):
+    """The default engine under shard_map (ppermute halos) matches the
+    float64 oracle within the precision's gate, for hops much shorter and
+    much longer than the shard."""
+    taps, x = _random_taps_case(num_taps)
+    plan = osv.make_plan(taps, precision=precision, block_size=block)
     mesh = make_mesh(mesh_shape)
     y, peak = sharded_filter(x, plan, mesh)
     y = np.asarray(y)
     ref = np.stack([oracle.direct_filter(x[c], taps) for c in range(2)])
-    # CPU-backend df64 is ~2x looser than TPU (known backend quirk, see
-    # .claude/skills/verify); the gate is about engine-under-mesh
-    # correctness, not the precision ladder (tests/test_overlap_save.py
-    # gates that on each engine unsharded).
-    assert oracle.max_lsb_error(y, ref, bits=24) <= 2.0
+    assert oracle.max_lsb_error(y, ref, bits=bits) <= 1.0
     assert np.isclose(float(peak), np.max(np.abs(ref)), rtol=1e-5)
 
 
-def test_sharded_pallas_engine_fast_path():
-    """f32 pallas engine under shard_map (the 16-bit production path)."""
-    taps, x = _pallas_case(193)
-    plan = osv.make_plan(taps, precision=osv.FAST, block_size=1024,
-                         engine="pallas")
-    mesh = make_mesh((2, 4))
-    y, _ = sharded_filter(x, plan, mesh)
-    ref = np.stack([oracle.direct_filter(x[c], taps) for c in range(2)])
-    assert oracle.max_lsb_error(np.asarray(y), ref, bits=16) <= 1.0
-
-
-def test_sharded_pallas_engine_edge_halos_and_normalize():
+@pytest.mark.parametrize("precision,bits", PRECISIONS)
+def test_sharded_default_engine_edge_halos_and_normalize(precision, bits):
     """Segment chaining (host-fed edge halos) and the fused auto-normalize
-    must also hold with the pallas engine in the shard_map body."""
-    taps, x = _pallas_case(193)
-    plan = osv.make_plan(taps, precision=osv.HIGH, block_size=1024,
-                         engine="pallas")
+    with the default engine in the shard_map body."""
+    taps, x = _random_taps_case(193)
+    plan = osv.make_plan(taps, precision=precision, block_size=1024)
     mesh = make_mesh((1, 4))
     ref = np.stack([oracle.direct_filter(x[c], taps) for c in range(2)])
     s, seg = 2048, 2048
@@ -238,23 +211,22 @@ def test_sharded_pallas_engine_edge_halos_and_normalize():
         x[:, s : s + seg], plan, mesh,
         edge_left=x[:, s - mo2 : s], edge_right=x[:, s + seg : s + seg + mo2])
     assert oracle.max_lsb_error(np.asarray(y_seg), ref[:, s : s + seg],
-                                bits=24) <= 2.0
+                                bits=bits) <= 1.0
     yn, _ = sharded_filter(x, plan, mesh, normalize=True)
     assert np.isclose(np.max(np.abs(np.asarray(yn))), 1.0, atol=1e-5)
 
 
-def test_sharded_streamed_pallas_engine():
-    """The full production multi-chip path in one test: host segment
-    streaming (edge-halo chaining) over shard_map (ppermute halos) running
-    the PALLAS engine — i.e. exactly what `--mesh DxT` does on a pod for
-    a long file."""
-    from audio_fir_filter_tpu.pipeline.stream import sharded_filter_streamed
+@pytest.mark.parametrize("precision,bits", PRECISIONS)
+def test_sharded_streamed_default_engine(precision, bits):
+    """The whole multi-device path: host segment streaming (edge-halo
+    chaining) over shard_map (ppermute halos) running the default engine
+    — what `--mesh DxT` does for a long file."""
+    from lowcut.pipeline.stream import sharded_filter_streamed
 
-    taps, x = _pallas_case(193)
-    plan = osv.make_plan(taps, precision=osv.HIGH, block_size=1024,
-                         engine="pallas")
+    taps, x = _random_taps_case(193)
+    plan = osv.make_plan(taps, precision=precision, block_size=1024)
     mesh = make_mesh((1, 4))
     y, peak = sharded_filter_streamed(x, plan, mesh, segment_len=2048)
     ref = np.stack([oracle.direct_filter(x[c], taps) for c in range(2)])
-    assert oracle.max_lsb_error(y, ref, bits=24) <= 2.0
+    assert oracle.max_lsb_error(y, ref, bits=bits) <= 1.0
     assert np.isclose(peak, np.max(np.abs(ref)), rtol=1e-5)
